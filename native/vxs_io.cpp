@@ -2,7 +2,7 @@
 //
 // The reference's runtime around its compute is C++ (dataset parsing +
 // cv::imread decode on the tracking thread, core/system/system.cpp:38-53).
-// This is the TPU-framework equivalent: a small C library that decodes TUM
+// This is the framework's equivalent: a small C library that decodes TUM
 // RGB-D PNG pairs (libpng) and runs a bounded multi-threaded prefetch
 // pipeline so host decode overlaps device compute (the pipeline-parallelism
 // analog in SURVEY.md §2.2). Python binds via ctypes (no pybind11 in the

@@ -1,4 +1,4 @@
-"""Fidelity loop (BASELINE.json metric): the strict-config TPU pipeline's
+"""Fidelity loop (BASELINE.json metric): the strict-config JAX pipeline's
 ATE/RPE must land within tolerance of the reference binary's on the same
 sequences.
 

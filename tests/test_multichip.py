@@ -1,5 +1,5 @@
 """Multi-chip correctness on the virtual 8-device CPU mesh (SURVEY.md §4:
-the TPU analog of fake-backend multi-node testing).
+the analog of fake-backend multi-node testing).
 
 Round-2 mandate: the dry run must prove CORRECTNESS, not compilation —
 each lane gets geometrically consistent observations (so it genuinely

@@ -1,4 +1,4 @@
-"""Native (C++) decode/prefetch runtime vs the cv2 oracle."""
+"""Native (C++) decode/prefetch runtime vs the Python PNG codec loader."""
 
 import numpy as np
 import pytest

@@ -1,4 +1,4 @@
-"""TPU-native ORB validated statistically against the OpenCV oracle
+"""Device ORB validated statistically against the OpenCV oracle
 (SURVEY.md §7.3: corner/descriptor agreement stats, not bitwise equality —
 the BRIEF pattern differs by design, see models/orb_jax.py).
 

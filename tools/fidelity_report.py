@@ -1,4 +1,4 @@
-"""Generate the FIDELITY.md results table: oracle vs strict-config TPU
+"""Generate the FIDELITY.md results table: oracle vs strict-config JAX
 pipeline over the round-4 coverage grid (3 seeds x 120 frames RGB-D, the
 fr1 distorted-optics row, and the monocular row).
 
@@ -109,7 +109,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="")
     args = ap.parse_args()
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
+    from visionx_slam_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     rows = []
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
-# Snapshot gate: every milestone commit must pass this (VERDICT r2 #1).
-# Runs the three driver entry points that BENCH_r{N}.json / MULTICHIP_r{N}.json
-# are generated from, plus the smoke test tier. Exits non-zero on any failure.
+# Snapshot gate (CPU): the graft entry, the 8-device multichip dry run,
+# bench --quick and the smoke test tier. Exits non-zero on any failure.
+# The GPU counterpart is `python chip_smoke.py` on a machine with a card.
 #
 # Usage: tools/gate.sh [--full]   (--full also runs the slow test tier)
 set -u

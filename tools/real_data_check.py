@@ -57,7 +57,9 @@ def run_real(args) -> int:
 
 
 def run_degradation_matrix(args) -> int:
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
+    from visionx_slam_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
     import numpy as np

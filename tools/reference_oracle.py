@@ -18,7 +18,7 @@ reference delegates to native libraries run through the SAME libraries:
 - cv2.solvePnPRansac + cv2.Rodrigues              (tracking.cpp:422-433)
 
 This file intentionally mirrors reference control flow rather than being
-TPU-idiomatic: it is a TEST TOOL (the fidelity baseline generator), not
+device-idiomatic: it is a TEST TOOL (the fidelity baseline generator), not
 part of the framework. Known reference quirks are preserved, not fixed:
 
 - the init parallax gate compares a mean PIXEL distance against 1 degree
@@ -31,7 +31,7 @@ part of the framework. Known reference quirks are preserved, not fixed:
   (local_ba.cpp:158) yet gates convergence for both halves.
 
 Output: TUM-format trajectory (timestamp tx ty tz qx qy qz qw, T_wc) of
-per-frame tracked poses, for ATE comparison against the TPU pipelines.
+per-frame tracked poses, for ATE comparison against the JAX pipelines.
 """
 
 from __future__ import annotations
@@ -984,7 +984,7 @@ def run_sequence(dataset_dir, sequence, options=None, max_frames=None,
     CreateLandmarksFromDepth a no-op at :600-607, so the map is built
     solely by two-view triangulation after the essential-matrix init, and
     TrackLastFrame's unit-norm translation fixes the arbitrary global
-    scale). ``frame_stride`` subsamples frames (the TPU bench's mono
+    scale). ``frame_stride`` subsamples frames (the bench's mono
     configs use stride 4: fr1-speed 15 mm steps starve the parallax
     gates; the reference behaves identically)."""
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))

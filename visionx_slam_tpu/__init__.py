@@ -1,24 +1,24 @@
-"""VisionX-SLAM TPU: a TPU-native (JAX/XLA/Pallas) visual SLAM framework.
+"""VisionX-SLAM in JAX: a visual SLAM framework compiled by XLA.
 
 A from-scratch rebuild of the capabilities of the reference C++ system
 QinZiwen/VisionX-SLAM (ORB features -> Hamming matching -> Essential/PnP
 RANSAC -> keyframe triangulation -> sliding-window bundle adjustment),
-re-designed TPU-first:
+designed for an accelerator (today one NVIDIA H100):
 
 - fixed shapes + validity masks everywhere (no dynamic control flow on device)
 - the map is an immutable pytree of fixed-capacity SoA tables
-- descriptor matching is a bit-plane GEMM on the MXU
+- descriptor matching is a bit-plane GEMM
 - RANSAC is a fixed batch of vmapped hypotheses + argmax
 - bundle adjustment is batched 6x6/3x3 block Gauss-Newton under lax.scan
 
 Layout:
-    ops/       low-level numerics: SE(3)/SO(3), camera models, Pallas kernels
+    ops/       low-level numerics: SE(3)/SO(3), camera models, small solves
     models/    pipeline stages: ORB extractor, matcher, RANSAC estimators, BA
     parallel/  device meshes, shard_map batch-mapping (throughput mode)
-    data/      TUM RGB-D loader, synthetic dataset generator, prefetch
+    data/      TUM RGB-D loader, PNG codec, synthetic dataset generator
     tracking/  host-side state machine + map state pytree
     eval/      trajectory export (TUM format), ATE/RPE metrics
-    utils/     config (reference-compatible flags), logging, timing
+    utils/     config (reference-compatible flags), logging, compile cache
     cli/       command-line runners
 """
 
@@ -26,10 +26,10 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# Geometry (DLT/RANSAC/BA normal equations) is float32 and precision-critical:
-# the default TPU matmul precision computes f32 contractions through bfloat16
-# passes (~5e-3 relative error), which visibly corrupts triangulation and
-# normal-equation solves. Force full-precision accumulation for f32 matmuls
-# framework-wide; throughput-critical kernels that genuinely want bf16 (the
-# Hamming descriptor GEMM) opt in explicitly with bf16 inputs.
+# Geometry (DLT/RANSAC/BA normal equations) is float32 and precision-critical.
+# On the GPU the default precision runs float32 matrix products in TF32 (10
+# mantissa bits, ~1e-3 relative error), which visibly corrupts triangulation
+# and normal-equation solves. Force full float32 products framework-wide;
+# kernels that want narrow arithmetic (the Hamming and BRIEF GEMMs, the
+# bf16 detection passes) choose their input dtypes explicitly.
 _jax.config.update("jax_default_matmul_precision", "highest")

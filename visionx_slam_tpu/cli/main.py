@@ -27,7 +27,7 @@ from ..utils.config import (
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser("vxs-run", description="VisionX-SLAM TPU runner")
+    p = argparse.ArgumentParser("vxs-run", description="VisionX-SLAM runner")
     cfg = SystemConfig()
 
     def add(name, default, help_=""):
@@ -70,9 +70,11 @@ def parse_config(argv=None) -> SystemConfig:
 
 def entrypoint(argv=None) -> int:
     # glog-style stderr logging (reference InitLogger, logger.cpp:5-9)
+    from ..utils.cache import enable_compile_cache
     from ..utils.logging import init_logger
 
     init_logger()
+    enable_compile_cache()
     cfg = parse_config(argv)
     from ..system.system import System
 

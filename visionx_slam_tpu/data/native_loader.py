@@ -2,10 +2,12 @@
 
 The reference's loader/decoder runtime is C++ (dataset parsing + cv::imread
 in the tracking-thread loop, system.cpp:38-53); ``native/vxs_io.cpp`` is
-the TPU framework's equivalent: libpng decode + a bounded multi-threaded
-prefetch pipeline that overlaps host decode with device compute. Bindings
-use ctypes (no pybind11 in the image). Falls back to the pure-Python
-(cv2-based) loader when the shared library is missing and cannot be built.
+this framework's equivalent: libpng decode + a bounded multi-threaded
+prefetch pipeline that overlaps host decode with device compute. It is
+built by ``make -C native`` on first use. Bindings use ctypes (no
+pybind11 in the image). Falls back to the Python loader (``data/tum.py``
+on the zlib/numpy codec ``data/png.py``) when the shared library is
+missing and cannot be built.
 """
 
 from __future__ import annotations

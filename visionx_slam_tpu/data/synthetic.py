@@ -231,7 +231,7 @@ def generate_sequence(
     optics with the real TUM fr1 radial-tangential distortion; pair it
     with a sequence name containing "freiburg1" so the loader picks the
     matching intrinsics file, dataset_tum_rgbd.cpp:124-165 semantics)."""
-    import cv2
+    from .png import write_png
 
     seq_dir = os.path.join(out_root, sequence)
     os.makedirs(os.path.join(seq_dir, "rgb"), exist_ok=True)
@@ -249,10 +249,10 @@ def generate_sequence(
 
         rgb_rel = f"rgb/{ts:.6f}.png"
         depth_rel = f"depth/{ts:.6f}.png"
-        bgr = cv2.cvtColor(gray, cv2.COLOR_GRAY2BGR)
-        cv2.imwrite(os.path.join(seq_dir, rgb_rel), bgr)
+        write_png(os.path.join(seq_dir, rgb_rel),
+                  np.repeat(gray[..., None], 3, axis=2))
         d16 = np.clip(depth * 5000.0, 0, 65535).astype(np.uint16)
-        cv2.imwrite(os.path.join(seq_dir, depth_rel), d16)
+        write_png(os.path.join(seq_dir, depth_rel), d16)
 
         rgb_lines.append(f"{ts:.6f} {rgb_rel}")
         # offset depth ts slightly to exercise nearest-neighbor association

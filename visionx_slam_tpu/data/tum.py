@@ -9,7 +9,8 @@ Re-implements core/common/dataset_tum_rgbd.{h,cpp}:
   ``color_camera_freiburgN.txt`` with 9 params fx fy cx cy k1 k2 p1 p2 k3
   (:124-165).
 
-Host-side (numpy) by design: file IO and PNG decode never run on device.
+Host-side (numpy) by design: file IO and PNG decode (``data/png.py``)
+never run on device.
 Depth images follow the TUM convention: 16-bit PNG, value/5000 = meters
 (reference tracking.cpp:603).
 """
@@ -22,6 +23,8 @@ import os
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from . import png
 
 log = logging.getLogger("vxs.data.tum")
 
@@ -213,21 +216,17 @@ def load_intrinsics(dataset_dir: str, sequence: str) -> Intrinsics | None:
 def load_rgb_gray(path: str) -> np.ndarray:
     """Decode an RGB PNG to grayscale uint8 [H,W] (OpenCV BGR2GRAY weights,
     matching the reference's cvtColor at tracking.cpp:122)."""
-    import cv2
-
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
-    if img is None:
-        raise FileNotFoundError(path)
-    return cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    img = png.read_png(path)
+    if img.ndim == 3:
+        return png.rgb_to_gray(img[..., :3])
+    if img.dtype == np.uint16:
+        return (img >> 8).astype(np.uint8)
+    return img
 
 
 def load_depth_m(path: str) -> np.ndarray:
     """Decode a 16-bit depth PNG to meters float32 [H,W]; 0 = invalid."""
-    import cv2
-
-    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if img is None:
-        raise FileNotFoundError(path)
+    img = png.read_png(path)
     if img.dtype == np.uint16:
         return img.astype(np.float32) / DEPTH_SCALE
     return img.astype(np.float32)

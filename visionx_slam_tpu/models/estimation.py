@@ -1,4 +1,4 @@
-"""Batched, fixed-shape robust pose estimation: the TPU RANSAC stack.
+"""Batched, fixed-shape robust pose estimation: the device RANSAC stack.
 
 Replaces the reference's delegated OpenCV calib3d calls (SURVEY.md §2.3):
 
@@ -8,7 +8,7 @@ Replaces the reference's delegated OpenCV calib3d calls (SURVEY.md §2.3):
   conf .99) + final refinement on inliers (reference tracking.cpp:409-447);
 - ``triangulate_dlt`` = the per-match 4x4 DLT SVD (tracking.cpp:931-945).
 
-TPU-first shape of the algorithms (SURVEY.md §7.5): RANSAC is a FIXED
+Device-first shape of the algorithms (SURVEY.md §7.5): RANSAC is a FIXED
 batch of hypotheses — minimal samples drawn with a Gumbel-top-k trick so
 every hypothesis uses distinct, valid correspondences — solved in one
 vmapped batch (nullspaces via eigh of the normal matrix, which lowers to
@@ -55,7 +55,7 @@ def sample_minimal_sets(
 
     Gumbel-top-k: per hypothesis add iid Gumbel noise to log(valid) and take
     the k largest — a uniform sample of k distinct valid indices with no
-    rejection loop (TPU-friendly replacement for sequential RANSAC draws).
+    rejection loop (a fixed-shape replacement for sequential RANSAC draws).
     If fewer than k valid entries exist, invalid indices leak in; callers
     gate on the overall inlier count, so such hypotheses lose the argmax.
 
@@ -94,17 +94,17 @@ def _smallest_eigvec(M: jnp.ndarray) -> jnp.ndarray:
     """
     d = M.shape[-1]
     if d == 4:
-        # hot path (per-correspondence triangulation): NO eigh at all —
-        # batched eigh on [N,4,4] costs ~3.4 ms for N=1024 on TPU (it ran
-        # on the online scan's keyframe-event path), while this closed-form
-        # route is ~0.45 ms. Start from the INHOMOGENEOUS solution
-        # (minimize ||M^(1/2) [X;1]||, i.e. M3 X = -b3 with M = [[M3,b3],
-        # [b3^T,c]]): for finite points the null vector has w != 0, so the
-        # start already matches eigh to ~1e-1 and two shifted inverse
+        # hot path (per-correspondence triangulation): NO eigh at all — on the
+        # earlier accelerator a batched eigh on [N,4,4] cost several times this
+        # closed-form route on the online scan's keyframe-event path (chosen
+        # there, not yet measured on the H100). Start from the INHOMOGENEOUS
+        # solution (minimize ||M^(1/2) [X;1]||, i.e. M3 X = -b3 with M =
+        # [[M3,b3], [b3^T,c]]): for finite points the null vector has w != 0,
+        # so the start already matches eigh to ~1e-1 and two shifted inverse
         # iterations close the rest (verified to 8e-3 vs eigh on noisy
         # wide-baseline geometry). Points at infinity degrade gracefully:
-        # near-singular M3 blows X0 up and the normalized start [X0;1] is
-        # the null direction itself.
+        # near-singular M3 blows X0 up and the normalized start [X0;1] is the
+        # null direction itself.
         from ..ops.linalg import chol_solve4x4, solve3x3
 
         X0 = solve3x3(M[..., :3, :3], -M[..., :3, 3])
@@ -154,8 +154,9 @@ def _eight_point_raw(x1: jnp.ndarray, x2: jnp.ndarray) -> jnp.ndarray:
     """x1,x2: [8,2] normalized coords -> RAW (unprojected) E [3,3].
 
     Deliberately NOT projected to the essential manifold: the projection
-    costs a 3x3 SVD per hypothesis, and tiny batched SVDs schedule
-    pathologically on TPU. The RANSAC stage ranks hypotheses by Sampson
+    costs a 3x3 SVD per hypothesis, and tiny batched SVDs scheduled
+    pathologically on the earlier accelerator, where this was designed (not
+    yet measured on the H100). The RANSAC stage ranks hypotheses by Sampson
     consensus at a LOOSE 4x gate, where the raw-vs-projected difference is
     far inside the gate; only the top-K surviving hypotheses get the SVD
     (see _project_essential / essential_ransac)."""
@@ -318,7 +319,7 @@ def essential_ransac(
     positive-depth voting over the four (R, t) decompositions with
     OpenCV's 50-unit distance gate; returned t has unit norm (monocular
     scale ambiguity, SURVEY.md "known quirks"). The 8-point solver replaces
-    Nister 5-point (SURVEY.md §7.5: per-hypothesis eigh is TPU-friendlier);
+    Nister 5-point (SURVEY.md §7.5: per-hypothesis eigh batches better);
     the fixed 256-hypothesis budget exceeds the adaptive-iteration count
     the reference's 0.999 confidence typically settles at.
 
@@ -605,10 +606,11 @@ def _dlt_pnp(X: jnp.ndarray, x: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
 
 def _kabsch3(P: jnp.ndarray, Q: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Closed-form rigid transform from 3 exact 3D-3D correspondences:
-    R P_i + t = Q_i. Orthonormal-triad construction — no SVD/eigh (batched
-    tiny decompositions schedule pathologically on TPU; this is a handful
-    of VPU ops). Degenerate (collinear) triples produce garbage poses that
-    simply lose the RANSAC consensus vote.
+    R P_i + t = Q_i. Orthonormal-triad construction — no SVD/eigh (batched tiny
+    decompositions scheduled pathologically on the earlier accelerator, where
+    this was designed; this is a handful of elementwise ops). Degenerate
+    (collinear) triples produce garbage poses that simply lose the RANSAC
+    consensus vote.
 
     P, Q: [3,3] points (rows). Returns (R [3,3], t [3]).
     """
@@ -664,7 +666,7 @@ def _pose_gn_refine(
         # pose Jacobian's 12 entries are explicit column formulas (the
         # closed form of J_proj(pc) @ [I | -hat(pc)], local_ba.cpp:15-33),
         # the 6x6 normal equations AND the rhs come from ONE augmented
-        # [7,2N]x[2N,7] MXU contraction (G = [J | err] rows), and the
+        # [7,2N]x[2N,7] contraction (G = [J | err] rows), and the
         # solve is the fully-unrolled scalar Cholesky (ops/linalg.py).
         pc = se3_apply(pose, X)
         x, y = pc[..., 0], pc[..., 1]
@@ -739,7 +741,7 @@ def pnp_ransac(
       reprojection over ALL correspondences, so depth holes/noise only
       restrict sampling, never the consensus. Sampling prefers points with
       valid depth.
-    - no depth (monocular): 6-point DLT (TPU-friendly batched eigh). The
+    - no depth (monocular): 6-point DLT (batched eigh). The
       projective DLT is degenerate on coplanar samples, but the calibrated
       6-DoF pose is NOT — the GN polish recovers planar-scene hypotheses
       the raw DLT cannot (planar-heavy frames are the norm indoors).

@@ -2,7 +2,7 @@
 
 The reference has NO global BA (SURVEY.md §5.7: only the 5-keyframe local
 window, no loop closure, no pose graph); BASELINE.json config 4 ("global
-bundle adjustment over the full fr3 map") requires one. TPU-native design
+bundle adjustment over the full fr3 map") requires one. Design
 (SURVEY.md §7.7), round-2 revision: the reduced camera system is never
 materialized — the Schur complement is applied as an OPERATOR inside
 preconditioned conjugate gradients, so the whole solve is gathers, k-major
@@ -155,9 +155,10 @@ def global_ba(
     def to_k(v_g):     # per-group -> per-keyframe (broadcast or gather)
         return v_g if single else v_g[grp]
 
-    # the link table never changes during GBA: sort observations by
-    # landmark ONCE, so every per-iteration landmark reduction is a sorted
-    # segment-sum (unsorted TPU scatters serialize per element)
+    # the link table never changes during GBA: sort observations by landmark
+    # ONCE, so every per-iteration landmark reduction is a sorted segment-sum
+    # (unsorted scatters serialized per element on the earlier accelerator,
+    # where this was chosen; not yet measured on the H100)
     flat_lm_all = lm_idx.reshape(-1)               # [O]
     kk = jnp.broadcast_to(jnp.arange(K)[:, None], (K, N)).reshape(-1)
     opt_obs_mask = (has_lm & lm_opt[lm_idx]).reshape(-1)

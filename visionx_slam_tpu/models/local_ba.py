@@ -5,7 +5,7 @@ alternating pose/point passes over the last ``window_size`` keyframes with
 Huber weighting, reprojection gating, 1e-6 Tikhonov damping, left-mult
 SE(3) retraction and a relative-cost convergence test.
 
-TPU-first mapping (SURVEY.md §7.7):
+Device mapping (SURVEY.md §7.7):
 - the pose pass is one vmapped batch over the window: per-keyframe 6x6
   normal equations built with einsum and solved as a [W,6,6] batched solve
   (poses are mutually independent within a pass, so the reference's
@@ -15,8 +15,8 @@ TPU-first mapping (SURVEY.md §7.7):
   iteration segment-sums 3x3/3x1 contributions into a [W*N]-bucket table
   and solves [W*N,3,3] systems — never touching the full landmark table
   (the reference iterates exactly the window's landmarks too,
-  local_ba.cpp:83-104; an O(L) table pass cost ~2.8 ms/frame at L=131k,
-  ~25x the window's actual observation count);
+  local_ba.cpp:83-104; an O(L) table pass at L=131k touches ~25x the
+  window's actual observation count);
 - the iteration loop is a ``lax.scan`` with a ``done`` flag implementing
   the reference's early convergence break (|last-cost|<1e-6*last,
   local_ba.cpp:244-246) as masked no-op iterations.
@@ -201,8 +201,9 @@ def local_ba(ms: MapState, cam: CameraParams, opts: BAOptions = BAOptions()) -> 
         from ..ops.linalg import chol_solve6x6
 
         # damped SPD: unrolled scalar Cholesky fuses into one kernel —
-        # jnp.linalg.solve lowers a [W,6,6] batch to LU loops on TPU, and
-        # this solve sits on the scan's keyframe-event path
+        # jnp.linalg.solve lowered a [W,6,6] batch to LU loops on the earlier
+        # accelerator (chosen there, not yet measured on the H100), and this
+        # solve sits on the scan's keyframe-event path
         dx = chol_solve6x6(H, b)  # [W,6]
 
         pose_obs = jnp.sum(obs, axis=1)
@@ -244,8 +245,9 @@ def local_ba(ms: MapState, cam: CameraParams, opts: BAOptions = BAOptions()) -> 
         cnt = table[:, 12]
 
         Hl = Hl + 1e-6 * jnp.eye(3, dtype=pc2.dtype)
-        # closed-form batched solve: LU on a [S,3,3] batch is pathologically
-        # slow on TPU; the adjugate form is pure VPU math
+        # closed-form batched solve: LU on a [S,3,3] batch was pathologically
+        # slow on the earlier accelerator (chosen there, not yet measured on
+        # the H100); the adjugate form is pure elementwise math
         from ..ops.linalg import solve3x3
 
         dp = solve3x3(Hl, bl)  # [S,3]

@@ -1,16 +1,16 @@
-"""Brute-force 2-NN Hamming matching as a batched MXU GEMM.
+"""Brute-force 2-NN Hamming matching as a batched GEMM.
 
 Replaces the reference's ``ORBMatcher`` (core/feature/orb_matcher.cpp:22-41:
 cv::BFMatcher(NORM_HAMMING) 2-NN + Lowe ratio test, nn_ratio = 0.8) and the
 match-quality distance filter applied at every call site
 (tracking.cpp:212-222, :291-304, :343-355: keep d <= max(2*min_dist, 30)).
 
-TPU-first design: for binary vectors a, b in {0,1}^256,
+Design: for binary vectors a, b in {0,1}^256,
 
     hamming(a, b) = popcount(a XOR b) = |a| + |b| - 2 <a, b>
 
-so the full N x M distance matrix is ONE [N,256]x[256,M] matmul on the MXU
-(bf16 inputs are exact for 0/1 values; f32 accumulation), plus rank-1
+so the full N x M distance matrix is ONE [N,256]x[256,M] matmul (int8
+0/1 bit planes, exact integer products), plus rank-1
 row/col sum corrections — no bit twiddling on the vector unit. The top-2
 selection is two masked min-reductions. Everything is fixed-shape and
 masked: invalid descriptor slots get distance +BIG and can never match.
@@ -49,23 +49,27 @@ def hamming_matrix(desc_a: jnp.ndarray, desc_b: jnp.ndarray) -> jnp.ndarray:
     """Full Hamming distance matrix [N, M] (bf16) from uint8 descriptors
     [N,32]/[M,32].
 
-    Computed as |a| + |b| - 2 a.b with the inner product on the MXU —
-    int8 bit planes (0/1 values are exact; int8 MXU throughput is 2x bf16,
-    f32 accumulation). The matrix itself is bf16: every distance is an
+    Computed as |a| + |b| - 2 a.b with the inner product as one GEMM of
+    int8 bit planes with an int32 result (exact by construction; XLA:GPU
+    has no int8 GEMM with a bf16 result). The matrix itself is bf16:
+    every distance is an
     integer in [0, 256], which bf16 represents EXACTLY, so argmin/ratio
     decisions are bit-identical to f32 while the [N,M] intermediate (the
     matcher's bandwidth cost) halves.
     """
-    a = unpack_bits(desc_a).astype(jnp.int8)
-    b = unpack_bits(desc_b).astype(jnp.int8)
+    a, pop_a = unpack_with_pop(desc_a)
+    b, pop_b = unpack_with_pop(desc_b)
+    return _hamming_from_bits(a, pop_a, b, pop_b)
+
+
+def _hamming_from_bits(bits_a, pop_a, bits_b, pop_b) -> jnp.ndarray:
     dot = jax.lax.dot_general(
-        a, b, (((1,), (1,)), ((), ())), preferred_element_type=jnp.bfloat16
+        bits_a, bits_b, (((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.int32,
     )
-    pop_a = jnp.sum(a, axis=-1, dtype=jnp.int32).astype(jnp.float32)
-    pop_b = jnp.sum(b, axis=-1, dtype=jnp.int32).astype(jnp.float32)
     # the correction arithmetic runs in f32 (pop_a+pop_b reaches 512 and
-    # ODD intermediates above 256 are not bf16-exact); XLA fuses it into
-    # the dot's epilogue, so only the final bf16 matrix is materialized
+    # ODD intermediates above 256 are not bf16-exact); only the final
+    # bf16 matrix is narrowed
     d = pop_a[:, None] + pop_b[None, :] - 2.0 * dot.astype(jnp.float32)
     return d.astype(jnp.bfloat16)
 
@@ -93,12 +97,7 @@ def knn2_from_bits(
 ) -> MatchResult:
     """``knn2_ratio_match`` on pre-unpacked bit planes (bit-identical —
     the unpack/popcount hoist is pure refactoring)."""
-    dot = jax.lax.dot_general(
-        bits_a, bits_b, (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.bfloat16,
-    )
-    d = pop_a[:, None] + pop_b[None, :] - 2.0 * dot.astype(jnp.float32)
-    D = d.astype(jnp.bfloat16)
+    D = _hamming_from_bits(bits_a, pop_a, bits_b, pop_b)
     return _knn2_select(D, valid_a, valid_b, nn_ratio)
 
 

@@ -10,7 +10,7 @@ Two implementations:
 - :class:`OpenCVExtractor` — the host oracle (the exact code path the
   reference delegates to at orb_extractor.cpp:13); used for fidelity
   baselines and as the matching/estimation test oracle.
-- :class:`JaxOrbExtractor` (models/orb_jax.py) — the TPU-native ORB
+- :class:`JaxOrbExtractor` (models/orb_jax.py) — the device ORB
   (pyramid -> FAST-9 -> Harris -> per-cell top-K -> orientation -> rBRIEF)
   running on device.
 

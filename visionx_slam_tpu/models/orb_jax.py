@@ -1,4 +1,4 @@
-"""TPU-native ORB: pyramid -> FAST-9 -> Harris -> per-level top-K ->
+"""Device ORB: pyramid -> FAST-9 -> Harris -> per-level top-K ->
 orientation -> steered BRIEF-256, entirely in JAX.
 
 This is the first-party replacement for the OpenCV work hidden behind
@@ -6,29 +6,29 @@ This is the first-party replacement for the OpenCV work hidden behind
 algorithm inventory SURVEY.md §2.3 row 1): 1000 features, scale 1.2,
 8 levels, 32-byte descriptors.
 
-TPU-first shape of each stage (everything is dense image-wide math that
-XLA fuses into a few elementwise/reduce kernels per level — no per-feature
-control flow until the final fixed-size top-K):
+Shape of each stage (everything is dense image-wide math that XLA fuses into a
+few elementwise/reduce kernels — no per-feature control flow until the final
+fixed-size top-K; the layouts were chosen on the earlier accelerator and are
+not yet measured on the H100, see PERF.md open questions):
 
-- FAST-9/16: the 16 circle taps are materialized by `jnp.roll` shifts (all
-  static), bright/dark masks reduced with a circular 9-window minimum
-  computed on the doubled mask stack — a [32,H,W] reduce, not a loop over
-  pixels.
-- Harris response on Sobel gradients with a 7x7 box window (OpenCV ORB
-  uses HARRIS_SCORE ranking; blockSize 7, k = 0.04).
-- 3x3 NMS via max-pool comparison.
+- FAST-9/16: the 16 circle taps are static slices of one padded copy of
+  the image, packed into int32 bright/dark bitmasks; the cyclic run-of-9
+  test is a few shift-ANDs on the masks, not a loop over pixels.
+- Harris response (f32) on Sobel gradients with a 7x7 box window (OpenCV
+  ORB uses HARRIS_SCORE ranking; blockSize 7, k = 0.04).
+- 3x3 NMS as a max over the 8 neighbour taps.
 - per-level candidate budget n_i ~ geometric(1/1.2) of n_features (the
   OpenCV per-level distribution), selected with a per-8x8-cell argmax then
   `lax.top_k` over cells.
 - orientation by intensity centroid over the radius-15 disc, computed for
   the selected keypoints from 31x31 patches gathered via a space-to-depth
-  cell layout (3x3 gathers of 256-lane cell vectors + one-hot recentering
+  cell layout (2x2 gathers of 32x32-cell vectors + one-hot recentering
   einsums — no per-keypoint dynamic_slice).
 - rBRIEF: a fixed 256-pair pattern (deterministic Gaussian pattern, sigma
   = patch/5, clipped to the radius-13 disc — descriptors are
   self-consistent, NOT bitwise-equal to OpenCV's learned pattern; parity
   is validated statistically, see SURVEY.md §7.3) steered by the keypoint
-  angle quantized to 32 bins, computed as ONE MXU matmul against +1/-1
+  angle quantized to 32 bins, computed as ONE matmul against +1/-1
   difference banks over the blurred patch, packed to uint8[32].
 
 The public entry point pads/validity-masks to a fixed feature capacity,
@@ -93,26 +93,27 @@ def _gaussian_kernel1d(size: int = 7, sigma: float = 2.0) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+def _taps(img: jnp.ndarray, r: int, mode: str = "edge", **pad_kw):
+    """tap(dy, dx)[y, x] = img[y+dy, x+dx] for |dy|, |dx| <= r, as static
+    slices of ONE padded copy. XLA fuses the slices into their consumer,
+    so a stencil costs one materialized pad instead of one shifted copy
+    per tap (rolls and per-pass pads each became a separate
+    concatenate kernel on the GPU)."""
+    H, W = img.shape
+    p = jnp.pad(img, r, mode=mode, **pad_kw)
+    return lambda dy, dx: p[r + dy : r + dy + H, r + dx : r + dx + W]
+
+
 def _sep_conv(img: jnp.ndarray, k: np.ndarray) -> jnp.ndarray:
-    """Separable 2D convolution with symmetric padding (single image).
+    """Separable 2D convolution with edge padding (single image).
     Accumulates in the IMAGE dtype (bf16 stays bf16 — no silent f32
     promotion; the callers choose precision)."""
     r = len(k) // 2
+    H, W = img.shape
     kj = jnp.asarray(k.astype(np.float32)).astype(img.dtype)
-    p = jnp.pad(img, ((r, r), (0, 0)), mode="edge")
-    out = sum(kj[i] * p[i : i + img.shape[0], :] for i in range(len(k)))
-    p = jnp.pad(out, ((0, 0), (r, r)), mode="edge")
-    return sum(kj[i] * p[:, i : i + img.shape[1]] for i in range(len(k)))
-
-
-def _box7(img: jnp.ndarray) -> jnp.ndarray:
-    ones = np.ones(HARRIS_BLOCK, np.float32)
-    return _sep_conv(img, ones)
-
-
-def _shift(img: jnp.ndarray, dy: int, dx: int) -> jnp.ndarray:
-    """Shifted view: out[y,x] = img[y+dy, x+dx] (edge padded)."""
-    return jnp.roll(img, (-dy, -dx), axis=(0, 1))
+    p = jnp.pad(img, r, mode="edge")
+    rows = sum(kj[i] * p[i : i + H, :] for i in range(len(k)))  # [H, W+2r]
+    return sum(kj[i] * rows[:, i : i + W] for i in range(len(k)))
 
 
 def _fast_corners(img: jnp.ndarray, threshold: float) -> jnp.ndarray:
@@ -120,18 +121,18 @@ def _fast_corners(img: jnp.ndarray, threshold: float) -> jnp.ndarray:
 
     The 16 circle comparisons are packed into an int32 bitmask per pixel
     and the cyclic run-of-9 test is done with shift-ANDs — two [H,W] int32
-    temporaries instead of a [24,H,W] stack of window minimums (which
-    lowered to a pathological fusion on TPU).
+    temporaries instead of a [24,H,W] stack of window minimums.
     """
+    tap = _taps(img, FAST_RADIUS)
     hi = img + threshold
     lo = img - threshold
     bright = jnp.zeros(img.shape, jnp.int32)
     dark = jnp.zeros(img.shape, jnp.int32)
     for i, (dy, dx) in enumerate(FAST_CIRCLE):
-        tap = _shift(img, int(dy), int(dx))
+        t = tap(int(dy), int(dx))
         bit = jnp.int32(1 << i)
-        bright = bright | jnp.where(tap > hi, bit, 0)
-        dark = dark | jnp.where(tap < lo, bit, 0)
+        bright = bright | jnp.where(t > hi, bit, 0)
+        dark = dark | jnp.where(t < lo, bit, 0)
 
     def run9(m):
         x = m | (m << 16)
@@ -145,43 +146,57 @@ def _fast_corners(img: jnp.ndarray, threshold: float) -> jnp.ndarray:
 
 
 def _harris(img: jnp.ndarray) -> jnp.ndarray:
-    """Harris response with Sobel gradients and a 7x7 block window."""
-    # Sobel via separable [1,2,1] x [-1,0,1]
-    smooth = np.array([1.0, 2.0, 1.0], np.float32)
-    diff = np.array([-1.0, 0.0, 1.0], np.float32)
+    """Harris response (f32) with Sobel gradients and a 7x7 block window.
 
-    def sobel(img, horizontal):
-        r = 1
-        p = jnp.pad(img, r, mode="edge")
-        ky, kx = (smooth, diff) if horizontal else (diff, smooth)
-        ky = jnp.asarray(ky).astype(img.dtype)
-        kx = jnp.asarray(kx).astype(img.dtype)
-        rows = sum(ky[i] * p[i : i + img.shape[0], :] for i in range(3))
-        return sum(kx[i] * rows[:, i : i + img.shape[1]] for i in range(3))
-
-    # gradients/products in the input dtype (bf16 on the hot path: these
-    # 12+ dense passes are bandwidth-bound); the det/trace CANCELLATION is
-    # the precision-sensitive part, so the box sums are cast to f32 first —
-    # ranking noise stays at the product level (~0.4%), validated vs cv2
-    dx = sobel(img, True) * jnp.asarray(0.25, img.dtype)
-    dy = sobel(img, False) * jnp.asarray(0.25, img.dtype)
-    sxx = _box7(dx * dx).astype(jnp.float32)
-    syy = _box7(dy * dy).astype(jnp.float32)
-    sxy = _box7(dx * dy).astype(jnp.float32)
+    Computed in float32 from the (bf16) image: the det/trace cancellation
+    is precision-sensitive, and bf16 products and box sums made the
+    response depend on how a backend orders and rounds them (GPU and CPU
+    disagreed on ~74% of pixels in bf16)."""
+    H, W = img.shape
+    b = HARRIS_BLOCK // 2
+    # gradients over the [H+2b, W+2b] window support, from one padded copy
+    p = jnp.pad(img.astype(jnp.float32), b + 1, mode="edge")
+    g = lambda dy, dx: p[1 + dy : 1 + dy + H + 2 * b, 1 + dx : 1 + dx + W + 2 * b]
+    # Sobel: separable [1,2,1] x [-1,0,1], scaled by 1/4
+    gx = 0.25 * ((g(-1, 1) - g(-1, -1)) + 2.0 * (g(0, 1) - g(0, -1))
+                 + (g(1, 1) - g(1, -1)))
+    gy = 0.25 * ((g(1, -1) - g(-1, -1)) + 2.0 * (g(1, 0) - g(-1, 0))
+                 + (g(1, 1) - g(-1, 1)))
+    prods = jnp.stack([gx * gx, gy * gy, gx * gy])     # [3, H+2b, W+2b]
+    rows = sum(prods[:, i : i + H, :] for i in range(HARRIS_BLOCK))
+    box = sum(rows[:, :, i : i + W] for i in range(HARRIS_BLOCK))
+    sxx, syy, sxy = box[0], box[1], box[2]
     det = sxx * syy - sxy * sxy
     tr = sxx + syy
     return det - HARRIS_K * tr * tr
 
 
 def _nms3(score: jnp.ndarray) -> jnp.ndarray:
-    """3x3 non-maximum suppression mask."""
-    neigh = [
-        _shift(score, dy, dx)
-        for dy in (-1, 0, 1)
-        for dx in (-1, 0, 1)
-        if (dy, dx) != (0, 0)
-    ]
-    return score >= jnp.stack(neigh).max(axis=0)
+    """3x3 non-maximum suppression mask (outside the image counts -inf)."""
+    tap = _taps(score, 1, mode="constant", constant_values=-jnp.inf)
+    neigh = [tap(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+             if (dy, dx) != (0, 0)]
+    m = neigh[0]
+    for t in neigh[1:]:
+        m = jnp.maximum(m, t)
+    return score >= m
+
+
+def _detect_score(img16: jnp.ndarray, allowed: jnp.ndarray,
+                  threshold: float) -> jnp.ndarray:
+    """Dense detection over a bf16 image: the Harris response (f32) where a
+    pixel is a FAST-9 corner, allowed by the border mask and the 3x3 NMS
+    winner among corners; -inf elsewhere."""
+    with jax.named_scope("orb_detect"):
+        corners = _fast_corners(img16, jnp.bfloat16(threshold))
+        harris = _harris(img16)
+        # NMS kept despite the per-cell argmax in orb_extract: dropping it
+        # doubled ATE on the synthetic benchmark (cross-cell near-duplicates
+        # crowd out weaker-but-distinct corners)
+        cand = corners & allowed & _nms3(
+            jnp.where(corners, harris, -jnp.inf)
+        )
+        return jnp.where(cand, harris, -jnp.inf)
 
 
 def _level_quotas(n_features: int, n_levels: int, scale: float) -> list[int]:
@@ -195,6 +210,8 @@ def _level_quotas(n_features: int, n_levels: int, scale: float) -> list[int]:
 
 PATCH_R = 15  # covers the rotated disc-clipped BRIEF radius (13.5 -> 14)
 PATCH_S = 2 * PATCH_R + 1  # 31: one patch feeds orientation AND BRIEF
+PATCH_CELL = 32  # s2d cell side of the patch gather (32 won over 16 on the
+                 # earlier accelerator; PERF.md open questions)
 BRIEF_BINS = 32  # orientation quantization for the matmul BRIEF (11.25 deg;
                  # OpenCV ORB quantizes to 12 deg — same fidelity class)
 
@@ -204,13 +221,13 @@ def _brief_bank(A: int = BRIEF_BINS) -> np.ndarray:
     """Difference banks for matmul BRIEF: [PATCH_S^2, A*256] with +1 at the
     first rotated sample and -1 at the second, per orientation bin.
 
-    Each BRIEF bit is the sign of a linear functional of the flattened
-    patch, so descriptor extraction for every keypoint becomes ONE MXU
-    matmul [Q, S^2] x [S^2, A*256] followed by a per-keypoint bin select —
-    ~14x faster on TPU than the per-keypoint dynamic gather it replaces
-    (per-row gathers serialize on the VPU; the MXU eats the dense
-    contraction). Rotation uses the same nearest-rounded steering as the
-    gather formulation, at A quantized angles.
+    Each BRIEF bit is the sign of a linear functional of the flattened patch,
+    so descriptor extraction for every keypoint becomes ONE matmul [Q, S^2] x
+    [S^2, A*256] followed by a per-keypoint bin select. Chosen on the earlier
+    accelerator, where per-row gathers serialized and the dense contraction
+    won; not yet measured on the H100 against a direct 256-pair gather.
+    Rotation uses the same nearest-rounded steering as the gather formulation,
+    at A quantized angles.
     """
     pat = _PATTERN.astype(np.float32)
     py, px = pat[:, :, 0], pat[:, :, 1]          # [256, 2]
@@ -231,7 +248,7 @@ def _orientation(patches: jnp.ndarray) -> jnp.ndarray:
     """Intensity-centroid angle from [K, PATCH_S, PATCH_S] patches over the
     radius-15 disc (IC-angle, reference inventory §2.3) — computed as ONE
     [K, S^2] x [S^2, 2] matmul (f32 accumulation) instead of two windowed
-    VPU reductions."""
+    reductions."""
     ys, xs = np.mgrid[-PATCH_R : PATCH_R + 1, -PATCH_R : PATCH_R + 1]
     disc = (xs**2 + ys**2 <= HALF_PATCH**2).astype(np.float32)
     wxy = np.stack([(xs * disc).reshape(-1), (ys * disc).reshape(-1)], -1)
@@ -251,7 +268,7 @@ def _atlas_layout(H: int, W: int, n_levels: int, scale_factor: float,
     """Static atlas geometry: greedy SHELF PACKING of the pyramid levels
     into one [total, W] image (small levels share a shelf side by side —
     ~15% fewer dense-pass pixels than a plain vertical stack). Every
-    placement is 8-aligned in both axes (f32 sublane tile / cell grid).
+    placement is 8-aligned in both axes (the 8x8 top-K cell grid).
     Returns (placements (oy,ox,h,w) per level, total rows, border mask).
     Levels touch with no guard gap: dense stencils contaminate <= 4 px
     across a seam and the per-level ``border``-px mask excludes them."""
@@ -279,92 +296,16 @@ def _atlas_layout(H: int, W: int, n_levels: int, scale_factor: float,
     return tuple(place), total, mask
 
 
-@functools.lru_cache(maxsize=1)
-def _pallas_available() -> bool:
-    """Probe: can the fused Mosaic detection kernel compile AND run on this
-    backend? Cached per process; any failure (missing toolchain, version
-    mismatch, lowering regression) silently selects the XLA path."""
-    if jax.default_backend() == "cpu":
-        return False
-    try:
-        from ..ops.pallas_detect import fast_harris_blur
-
-        a = jnp.zeros((64, 128), jnp.bfloat16)
-        m = jnp.ones((64, 128), jnp.int8)
-        score, blur = fast_harris_blur(a, m, 20.0)
-        jax.block_until_ready(score)
-        return True
-    except Exception:
-        return False
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_features", "scale_factor", "n_levels", "n_slots",
-                     "fast_threshold", "border", "use_pallas",
-                     "profile_stage", "patch_cell", "resize_f32"),
-)
-def orb_extract(
-    gray_u8: jnp.ndarray,  # [H,W] uint8
-    n_features: int = 1000,
-    scale_factor: float = 1.2,
-    n_levels: int = 8,
-    n_slots: int = 1024,
-    fast_threshold: float = 20.0,
-    border: int = 31,
-    use_pallas: int = -1,  # -1 auto (TPU only), 0 off, 1 on
-    profile_stage: int = 3,  # profiling knob: 1=detect, 2=+orient, 3=full
-    patch_cell: int = 32,  # s2d cell side for the patch gather (16 or 32):
-                           # 2x2 gathers of 1024-lane cells beat 3x3 of
-                           # 256-lane cells (gather cost ~ row count, rule 9)
-    resize_f32: int = 0,   # 1: build the pyramid (resize/pack) in f32 and
-                           # cast once — the pre-bf16-build behavior, kept
-                           # for the strict reference-fidelity config whose
-                           # ATE band is sensitive to resize rounding
-):
-    """Full ORB: returns (px [S,2] level-0 pixels, resp [S], desc [S,32],
-    valid [S]) with S = n_slots; defaults mirror orb_extractor.h:11-13.
-
-    All pyramid levels are packed into ONE vertical atlas image so each
-    dense pass (FAST bitmask, Harris, NMS, Gaussian blur) runs once over a
-    single well-tiled [Ha,W] array instead of 8 separately-launched levels
-    with awkward shapes — the dominant cost of extraction on TPU was the
-    per-level launch/fusion overhead, not the pixel math. Level boundaries
-    need no guard rows: rolls/convs contaminate at most 4 rows across a
-    boundary and the per-level 31-px border mask excludes them.
-    """
-    if use_pallas == -1:
-        # auto: probe the Mosaic toolchain once per process and use the
-        # fused kernel when it works (VXS_PALLAS=0/1 forces off/on; the
-        # kernel is also validated in interpreter mode on CPU,
-        # tests/test_pallas_detect.py)
-        import os
-
-        env = os.environ.get("VXS_PALLAS", "")
-        if env == "0":
-            use_pallas = 0
-        elif env == "1":
-            use_pallas = 1
-        else:
-            use_pallas = 1 if _pallas_available() else 0
-    H, W = gray_u8.shape
-    # the whole pyramid lives in bf16: every consumer (FAST compares,
-    # Harris products, blur, patch gather) already computes in bf16, so
-    # building/resizing/packing the atlas at f32 was pure wasted
-    # bandwidth; bilinear weights on values <= 255 add < 1 intensity of
-    # rounding — the same noise class as the bf16 blur itself
-    img0 = gray_u8.astype(jnp.float32 if resize_f32 else jnp.bfloat16)
-    quotas = _level_quotas(n_features, n_levels, scale_factor)
-    place, total_rows, border_mask = _atlas_layout(
-        H, W, n_levels, scale_factor, border
-    )
-
-    # ---- build the shelf-packed atlas (one resize per level) ----
+def _pyramid_atlas(img0: jnp.ndarray, place, total_rows: int) -> jnp.ndarray:
+    """The shelf-packed pyramid atlas [total_rows, W] of ``img0`` (one
+    bilinear resize per level, in ``img0``'s dtype; layout from
+    ``_atlas_layout``)."""
+    W = img0.shape[1]
     levels = [
         img0 if lvl == 0 else jax.image.resize(
             img0, (place[lvl][2], place[lvl][3]), method="linear"
         )
-        for lvl in range(n_levels)
+        for lvl in range(len(place))
     ]
     shelves = []          # list of (y, [padded level blocks]) per shelf
     for lvl, (oy, ox, h, w) in enumerate(place):
@@ -372,7 +313,6 @@ def orb_extract(
             shelves.append((oy, []))
         shelves[-1][1].append((lvl, ox, h, w))
     row_blocks = []
-    ycur = 0
     for si, (oy, members) in enumerate(shelves):
         next_oy = shelves[si + 1][0] if si + 1 < len(shelves) else total_rows
         sh = next_oy - oy
@@ -385,43 +325,61 @@ def orb_extract(
         if xcur < W:
             cols.append(jnp.zeros((sh, W - xcur), img0.dtype))
         row_blocks.append(jnp.concatenate(cols, axis=1))
-    atlas = jnp.concatenate(row_blocks, axis=0)      # [total_rows, W]
+    return jnp.concatenate(row_blocks, axis=0)
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("n_features", "scale_factor", "n_levels", "n_slots",
+                     "fast_threshold", "border", "resize_f32"),
+)
+def orb_extract(
+    gray_u8: jnp.ndarray,  # [H,W] uint8
+    n_features: int = 1000,
+    scale_factor: float = 1.2,
+    n_levels: int = 8,
+    n_slots: int = 1024,
+    fast_threshold: float = 20.0,
+    border: int = 31,
+    resize_f32: int = 0,   # 1: build the pyramid (resize/pack) in f32 and
+                           # cast once — the pre-bf16-build behavior, kept
+                           # for the strict reference-fidelity config whose
+                           # ATE band is sensitive to resize rounding
+):
+    """Full ORB: returns (px [S,2] level-0 pixels, resp [S], desc [S,32],
+    valid [S]) with S = n_slots; defaults mirror orb_extractor.h:11-13.
+
+    All pyramid levels are packed into ONE vertical atlas image so each
+    dense pass (FAST bitmask, Harris, NMS, Gaussian blur) runs once over a
+    single well-tiled [Ha,W] array instead of 8 separately-launched levels
+    with awkward shapes (chosen on the earlier accelerator, where
+    per-level launch/fusion overhead outweighed the pixel math; not yet
+    measured on the H100). Level boundaries need no guard rows: stencils
+    contaminate at most 5 rows across a boundary and the per-level 31-px
+    border mask excludes them.
+    """
+    H, W = gray_u8.shape
+    # the whole pyramid lives in bf16: every consumer (FAST compares,
+    # Harris products, blur, patch gather) already computes in bf16, so
+    # building/resizing/packing the atlas at f32 was pure wasted
+    # bandwidth; bilinear weights on values <= 255 add < 1 intensity of
+    # rounding — the same noise class as the bf16 blur itself
+    img0 = gray_u8.astype(jnp.float32 if resize_f32 else jnp.bfloat16)
+    quotas = _level_quotas(n_features, n_levels, scale_factor)
+    place, total_rows, border_mask = _atlas_layout(
+        H, W, n_levels, scale_factor, border
+    )
+
+    atlas = _pyramid_atlas(img0, place, total_rows)   # [total_rows, W]
     in_border = jnp.asarray(border_mask)
 
-    # ---- dense passes, once over the whole pyramid (bf16: these are
-    # HBM-bandwidth-bound elementwise/window ops; image intensities and
-    # Harris RANKING survive bf16 — validated vs the f32 oracle in
-    # tests/test_orb_jax.py) ----
-    blurred16 = None
-    if use_pallas:
-        from ..ops.pallas_detect import NEG, fast_harris_blur
-
-        raw, blurred16 = fast_harris_blur(
-            atlas.astype(jnp.bfloat16),
-            jnp.asarray(border_mask.astype(np.int8)),
-            fast_threshold,
-        )
-        score = jnp.where(raw > 0.5 * NEG, raw, -jnp.inf)
-    else:
-        atlas16 = atlas.astype(jnp.bfloat16)
-        corners = _fast_corners(atlas16, jnp.bfloat16(fast_threshold))
-        harris = _harris(atlas16).astype(jnp.float32)
-        # NMS kept despite the per-cell argmax below: dropping it was ~2%
-        # faster but doubled ATE on the synthetic benchmark (cross-cell
-        # near-duplicates crowd out weaker-but-distinct corners)
-        cand = corners & in_border & _nms3(
-            jnp.where(corners, harris, -jnp.inf)
-        )
-        score = jnp.where(cand, harris, -jnp.inf)
-
-    if profile_stage <= 0:
-        # profiling: dense passes only (atlas + detect, no selection)
-        S = n_slots
-        resp = jnp.zeros((S,), jnp.float32).at[0].set(
-            jnp.sum(jnp.where(jnp.isfinite(score), score, 0.0))
-        )
-        return (jnp.zeros((S, 2), jnp.float32), resp,
-                jnp.zeros((S, 32), jnp.uint8), jnp.zeros((S,), bool))
+    # ---- dense passes, once over the whole pyramid: FAST compares and
+    # the blur in bf16 (integer intensities are exact), Harris in f32
+    # (tests/test_orb_dense.py pins both against numpy) ----
+    atlas16 = atlas.astype(jnp.bfloat16)
+    score = _detect_score(atlas16, in_border, fast_threshold)
+    with jax.named_scope("orb_blur"):
+        blurred = _sep_conv(atlas16, _gaussian_kernel1d())
 
     # ---- per-level grid-bucketed top-K (cheap: cell reductions) ----
     CELL = 8
@@ -437,10 +395,11 @@ def orb_extract(
         cell_max = jnp.max(cells, axis=-1)
         cell_arg = jnp.argmax(cells, axis=-1)
         quota = quotas[lvl]
-        # exact top_k: approx_max_k (recall 0.95) was tried here and
-        # REGRESSED e2e 452 -> 335 fps — the ~5% different corner picks
-        # cascade into the keyframe policy (+25% keyframes -> more kf
-        # chain/link/GBA/retrack work), swamping the sort saving
+        # exact top_k: approx_max_k (recall 0.95) was tried on the
+        # earlier accelerator and regressed end to end — the ~5%
+        # different corner picks cascade into the keyframe policy (+25%
+        # keyframes -> more kf chain/link/GBA/retrack work), swamping
+        # the sort saving
         top, cidx = jax.lax.top_k(cell_max.reshape(-1), quota)
         cy = (cidx // Wc).astype(jnp.int32)
         cx = (cidx % Wc).astype(jnp.int32)
@@ -461,110 +420,97 @@ def orb_extract(
     resp = jnp.where(valid, top, 0.0)
     xy = jnp.concatenate(all_lxy)                    # level-0 pixels
 
-    if profile_stage <= 1:
-        desc = jnp.zeros((xy.shape[0], 32), jnp.uint8)
-    else:
-        # ---- one blur + space-to-depth patch gather for ALL keypoints ----
-        # Per-keypoint dynamic_slice serialized (~1.6 ms/frame); instead the
-        # blurred atlas is retiled into CSxCS cells [Hc*Wc, CS*CS] so each
-        # patch is an NCxNC gather of FULL CS*CS-lane cell vectors (gather
-        # cost scales with ROW count, so fewer/wider cells win: measured
-        # 3x3 gathers of 256-lane cells beat 5x5 of 64-lane by ~1.4x, and
-        # the current default CS=32 makes it a 2x2 gather of 1024-lane
-        # cells), reassembled to a REGxREG region and recentered to the
-        # 31x31 patch with two one-hot einsums (MXU, exact 0/1 selection).
-        # blur + gather + recenter all in bf16: the descriptor COMPARES
-        # blurred values (sign decisions), orientation accumulates in f32
-        blurred = (blurred16 if blurred16 is not None else
-                   _sep_conv(atlas.astype(jnp.bfloat16), _gaussian_kernel1d()))
-        CS = patch_cell
-        NC = 1 + -(-(PATCH_S - 1) // CS)             # cells per patch side
-        REG = NC * CS                                # 48 (CS=16) / 64 (CS=32)
-        # region spans [base - base%CS, +REG): up to CS-1+PATCH_S+PATCH_R
-        # past a keypoint, and keypoints sit PATCH_R+... >=31 px inside a
-        # level but levels touch: pad one extra cell both axes
-        Hp2 = -(-blurred.shape[0] // CS) * CS + CS
-        Wp2 = -(-W // CS) * CS + CS
-        blurred = jnp.pad(
-            blurred, ((0, Hp2 - blurred.shape[0]), (0, Wp2 - W))
-        )
-        Hc2, Wc2 = Hp2 // CS, Wp2 // CS
-        s2d = blurred.reshape(Hc2, CS, Wc2, CS).transpose(0, 2, 1, 3).reshape(
-            Hc2 * Wc2, CS * CS
-        )
-        Q = yy.shape[0]
-        base_y = yy - PATCH_R
-        base_x = xx - PATCH_R
-        cy, oy = base_y // CS, base_y % CS
-        cx, ox = base_x // CS, base_x % CS
-        d3 = jnp.arange(NC, dtype=jnp.int32)
-        cell_idx = (
-            (cy[:, None, None] + d3[:, None]) * Wc2
-            + cx[:, None, None] + d3[None, :]
-        )  # [Q,NC,NC]; keypoints are >=31 px inside, so cells stay in range
-        # (dead top_k slots may wrap negatively — harmless, masked by valid)
-        g = s2d[cell_idx.reshape(-1)]                # [Q*NC*NC, CS*CS]
-        region = g.reshape(Q, NC, NC, CS, CS).transpose(0, 1, 3, 2, 4).reshape(
-            Q, REG, REG
-        )
-        ii = jnp.arange(PATCH_S, dtype=jnp.int32)
-        jj = jnp.arange(REG, dtype=jnp.int32)
-        Ysel = (oy[:, None, None] + ii[:, None] == jj).astype(jnp.bfloat16)
-        Xsel = (ox[:, None, None] + ii[:, None] == jj).astype(jnp.bfloat16)
-        t = jnp.einsum(
-            "qij,qjk->qik", Ysel, region,
-            preferred_element_type=jnp.bfloat16,
-        )
-        patches = jnp.einsum(
-            "qik,qjk->qij", t, Xsel,
-            preferred_element_type=jnp.bfloat16,
-        )  # [Q,31,31] bf16 (one-hot selection exact; values bf16)
-        angles = _orientation(patches)
-        if profile_stage <= 2:
-            resp = resp + 0 * jnp.sum(angles)
-            desc = jnp.zeros((xy.shape[0], 32), jnp.uint8)
-        else:
-            # matmul BRIEF: one [Q, S^2] x [S^2, A*256] MXU contraction
-            # computes every bit's pixel difference for ALL orientation
-            # bins; each keypoint then selects its quantized bin's 256
-            # columns. int8 path: each bank column holds exactly one +1
-            # and one -1, so centering the patch at -128 keeps the
-            # difference EXACT in int8 ((a-128)-(b-128) = a-b) while the
-            # int8 MXU runs at 2x bf16 throughput. Rounding blur to
-            # integer intensity shifts sign decisions by < 0.5 — the same
-            # noise class as the bf16 blur itself (validated
-            # statistically, tests/test_orb_jax.py).
-            A = BRIEF_BINS
-            Dj8 = jnp.asarray(_brief_bank(A).astype(np.int8))
-            bins = jnp.mod(
-                jnp.round(angles / (2.0 * np.pi / A)).astype(jnp.int32), A
-            )
-            q = patches.shape[0]
-            flat = patches.reshape(q, PATCH_S * PATCH_S)
-            flat8 = (
-                jnp.clip(jnp.round(flat.astype(jnp.float32)), 0.0, 255.0)
-                .astype(jnp.int32) - 128
-            ).astype(jnp.int8)
-            # int8 MXU contraction, but the [q, A*256] intermediate is the
-            # bandwidth cost (32 MB/frame at int32) — accumulate f32 and
-            # round the OUTPUT to bf16: each value is one (a-128)-(b-128)
-            # = a-b in [-255, 255]; bf16 rounding preserves the sign (only
-            # magnitude rounds, and integers up to 256 are exact), so the
-            # sign decisions are bit-identical to the int32 path while the
-            # intermediate halves to 16 MB
-            vals = jax.lax.dot_general(
-                flat8, Dj8, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.bfloat16,
-            )  # [q, A*256] = first-sample minus second-sample, per bin
-            sel = jnp.take_along_axis(
-                vals.reshape(q, A, 256), bins[:, None, None], axis=1
-            )[:, 0]
-            bits = (sel < 0).astype(jnp.uint8)
-            weights = jnp.asarray((2 ** np.arange(8)).astype(np.uint8))
-            desc = jnp.sum(
-                bits.reshape(-1, 32, 8) * weights[None, None, :],
-                axis=-1, dtype=jnp.uint8,
-            )
+    # ---- space-to-depth patch gather of the blurred atlas for ALL
+    # keypoints. Per-keypoint dynamic_slice serialized on the earlier
+    # accelerator; instead the blurred atlas is retiled into CSxCS cells
+    # [Hc*Wc, CS*CS] so each patch is an NCxNC gather of FULL CS*CS-wide
+    # cell vectors (there gather cost scaled with ROW count, so
+    # fewer/wider cells won; CS=32 makes it a 2x2 gather of 1024-wide
+    # cells; not yet measured on the H100), reassembled to a REGxREG
+    # region and recentered to the 31x31 patch with two one-hot einsums
+    # (exact 0/1 selection). Gather + recenter in bf16: the descriptor
+    # COMPARES blurred values (sign decisions), orientation accumulates
+    # in f32 ----
+    CS = PATCH_CELL
+    NC = 1 + -(-(PATCH_S - 1) // CS)             # cells per patch side
+    REG = NC * CS                                # 48 (CS=16) / 64 (CS=32)
+    # region spans [base - base%CS, +REG): up to CS-1+PATCH_S+PATCH_R
+    # past a keypoint, and keypoints sit PATCH_R+... >=31 px inside a
+    # level but levels touch: pad one extra cell both axes
+    Hp2 = -(-blurred.shape[0] // CS) * CS + CS
+    Wp2 = -(-W // CS) * CS + CS
+    blurred = jnp.pad(
+        blurred, ((0, Hp2 - blurred.shape[0]), (0, Wp2 - W))
+    )
+    Hc2, Wc2 = Hp2 // CS, Wp2 // CS
+    s2d = blurred.reshape(Hc2, CS, Wc2, CS).transpose(0, 2, 1, 3).reshape(
+        Hc2 * Wc2, CS * CS
+    )
+    Q = yy.shape[0]
+    base_y = yy - PATCH_R
+    base_x = xx - PATCH_R
+    cy, oy = base_y // CS, base_y % CS
+    cx, ox = base_x // CS, base_x % CS
+    d3 = jnp.arange(NC, dtype=jnp.int32)
+    cell_idx = (
+        (cy[:, None, None] + d3[:, None]) * Wc2
+        + cx[:, None, None] + d3[None, :]
+    )  # [Q,NC,NC]; keypoints are >=31 px inside, so cells stay in range
+    # (dead top_k slots may wrap negatively — harmless, masked by valid)
+    g = s2d[cell_idx.reshape(-1)]                # [Q*NC*NC, CS*CS]
+    region = g.reshape(Q, NC, NC, CS, CS).transpose(0, 1, 3, 2, 4).reshape(
+        Q, REG, REG
+    )
+    ii = jnp.arange(PATCH_S, dtype=jnp.int32)
+    jj = jnp.arange(REG, dtype=jnp.int32)
+    Ysel = (oy[:, None, None] + ii[:, None] == jj).astype(jnp.bfloat16)
+    Xsel = (ox[:, None, None] + ii[:, None] == jj).astype(jnp.bfloat16)
+    t = jnp.einsum(
+        "qij,qjk->qik", Ysel, region,
+        preferred_element_type=jnp.bfloat16,
+    )
+    patches = jnp.einsum(
+        "qik,qjk->qij", t, Xsel,
+        preferred_element_type=jnp.bfloat16,
+    )  # [Q,31,31] bf16 (one-hot selection exact; values bf16)
+    angles = _orientation(patches)
+    # matmul BRIEF: one [Q, S^2] x [S^2, A*256] contraction
+    # computes every bit's pixel difference for ALL orientation
+    # bins; each keypoint then selects its quantized bin's 256
+    # columns. int8 path: each bank column holds exactly one +1
+    # and one -1, so centering the patch at -128 keeps the
+    # difference EXACT in int8 ((a-128)-(b-128) = a-b), and int8
+    # GEMMs run at twice the bf16 rate. Rounding blur to
+    # integer intensity shifts sign decisions by < 0.5 — the same
+    # noise class as the bf16 blur itself (validated
+    # statistically, tests/test_orb_jax.py).
+    A = BRIEF_BINS
+    Dj8 = jnp.asarray(_brief_bank(A).astype(np.int8))
+    bins = jnp.mod(
+        jnp.round(angles / (2.0 * np.pi / A)).astype(jnp.int32), A
+    )
+    q = patches.shape[0]
+    flat = patches.reshape(q, PATCH_S * PATCH_S)
+    flat8 = (
+        jnp.clip(jnp.round(flat.astype(jnp.float32)), 0.0, 255.0)
+        .astype(jnp.int32) - 128
+    ).astype(jnp.int8)
+    # int8 contraction with an int32 result: exact by
+    # construction (each value is one (a-128)-(b-128) = a-b in
+    # [-255, 255]); XLA:GPU has no int8 GEMM with a bf16 result
+    vals = jax.lax.dot_general(
+        flat8, Dj8, (((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.int32,
+    )  # [q, A*256] = first-sample minus second-sample, per bin
+    sel = jnp.take_along_axis(
+        vals.reshape(q, A, 256), bins[:, None, None], axis=1
+    )[:, 0]
+    bits = (sel < 0).astype(jnp.uint8)
+    weights = jnp.asarray((2 ** np.arange(8)).astype(np.uint8))
+    desc = jnp.sum(
+        bits.reshape(-1, 32, 8) * weights[None, None, :],
+        axis=-1, dtype=jnp.uint8,
+    )
 
     # compact into n_slots (valid first, by construction ordered by level)
     S = n_slots

@@ -1,10 +1,10 @@
 """Structured global BA for offline-built maps: the pairwise Schur solve.
 
-``models/global_ba.py`` is the general solver: it handles ANY observation
-graph via a landmark-sorted observation table, which costs one [K*N]
-argsort per call plus one sorted scatter-add and one gather per PCG
-matvec (~1.5 ms each at K=128, N=1024 on TPU — the dominant cost of the
-offline pipeline's refine stage).
+``models/global_ba.py`` is the general solver: it handles ANY observation graph
+via a landmark-sorted observation table, which costs one [K*N] argsort per call
+plus one sorted scatter-add and one gather per PCG matvec (on the earlier
+accelerator, where this was designed, the dominant cost of the offline
+pipeline's refine stage; not yet measured on the H100).
 
 Offline maps have more structure than that. ``build_keyframe_map`` +
 ``_link_consecutive_keyframes`` guarantee every landmark has AT MOST TWO
@@ -16,14 +16,12 @@ reduction collapses to ONE ``take_along_axis`` pass along the feature
 axis of the adjacent keyframe — no sort, no scatter, no landmark-major
 table at all.
 
-This module exploits that plus a TPU-friendly data layout: all per-
-observation quantities live as component-major [K, N] float32 arrays
-(K=128 sublane-tiles, N=1024 lanes — perfectly tiled), and the tiny
-fixed-size tensor algebra (2x6 Jacobians, 3x3/6x6 blocks) is unrolled
-into component arithmetic. The general solver stores these as
-[K, N, 2, 6]-shaped arrays whose trailing dims pad to (8, 128) TPU
-tiles — a 40x memory blowup that made every einsum bandwidth-
-pathological.
+This module exploits that plus a component-major data layout: all per-
+observation quantities live as [K, N] float32 arrays, and the tiny fixed-size
+tensor algebra (2x6 Jacobians, 3x3/6x6 blocks) is unrolled into component
+arithmetic. The general solver stores these as [K, N, 2, 6]-shaped arrays,
+whose small trailing dims the earlier accelerator's tiling padded many times
+over (the reason for this layout there; not yet measured on the H100).
 
 Semantics match ``global_ba`` (same residuals, Huber weights, reproj
 gate, Schur-complement GN with block-Jacobi PCG, gauge fixed at the

@@ -1,9 +1,9 @@
-"""Small-matrix closed-form linear algebra for the VPU.
+"""Small-matrix closed-form linear algebra as elementwise math.
 
 ``jnp.linalg.solve`` lowers batched tiny systems to LU kernels that
 schedule poorly for huge batch counts (the landmark table solves are
 [131072, 3, 3]); the adjugate/Cramer forms below are pure elementwise
-arithmetic that XLA fuses into a handful of VPU ops.
+arithmetic that XLA fuses into a handful of elementwise kernels.
 """
 
 from __future__ import annotations
@@ -67,8 +67,9 @@ def inv2x2(A: jnp.ndarray, eps: float = 1e-30) -> jnp.ndarray:
 def solve4x4(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched solve of SPD-ish A x = b for [..., 4, 4] x [..., 4] via a
     2x2-block Schur complement (pivot-free; the leading 2x2 block must be
-    invertible, true for the SPD normal matrices used here). Pure VPU math
-    — batched LU on [N,4,4] is pathologically slow on TPU."""
+    invertible, true for the SPD normal matrices used here). Pure elementwise
+    math — batched LU on [N,4,4] was pathologically slow on the earlier
+    accelerator, where this was chosen (not yet measured on the H100)."""
     P = A[..., :2, :2]
     Q = A[..., :2, 2:]
     R = A[..., 2:, :2]
@@ -180,8 +181,9 @@ def chol_solve6x6(A: jnp.ndarray, b: jnp.ndarray,
 def solve6x6_spd(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched solve of SPD [..., 6, 6] x [..., 6] via a 3x3-block Schur
     complement (pivot-free; valid for the damped Gauss-Newton normal
-    matrices used here). Pure VPU math — ``jnp.linalg.solve`` lowers
-    batched tiny systems to LU loops that serialize on TPU."""
+    matrices used here). Pure elementwise math — ``jnp.linalg.solve``
+    lowered batched tiny systems to LU loops that serialized on the earlier
+    accelerator, where this was chosen (not yet measured on the H100)."""
     P = A[..., :3, :3]
     Q = A[..., :3, 3:]
     R = A[..., 3:, :3]

@@ -1,12 +1,12 @@
 """Throughput mode: batched multi-sequence mapping over a device mesh.
 
 The reference has NO data parallelism (SURVEY.md §2.2: its only parallelism
-is three host threads + mutexes). The TPU-native scaling story replaces
-that entirely: independent sequences map in parallel across a
-``jax.sharding.Mesh`` ("seq" axis = data parallelism over ICI), one
-SPMD-jitted SLAM step per frame batch, with XLA collectives (psum) for
-fleet-level statistics — BASELINE.json config 5 ("all fr1 sequences in
-parallel across a v5e slice").
+is three host threads + mutexes). Here independent sequences map in
+parallel across a ``jax.sharding.Mesh`` ("seq" axis = data parallelism
+over the device interconnect, NVLink between GPUs), one SPMD-jitted SLAM
+step per frame batch, with XLA collectives (psum) for fleet-level
+statistics — BASELINE.json config 5 (all fr1 sequences in parallel
+across several chips).
 
 ``slam_step`` is the fully-fused, host-sync-free device step: match
 against the newest keyframe -> PnP RANSAC -> keyframe insert -> depth +
@@ -20,7 +20,8 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax import shard_map
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..models import matching
 from ..models.estimation import pnp_ransac
@@ -86,7 +87,7 @@ def slam_step(
 
 def batched_slam_step(mesh: Mesh, cam: CameraParams, **step_kw):
     """Build the SPMD batched step: leading axis = sequences, sharded over
-    the mesh; per-fleet totals are aggregated with psum over ICI."""
+    the mesh; per-fleet totals are aggregated with one psum."""
     axis = mesh.axis_names[0]
 
     vstep = jax.vmap(
@@ -101,31 +102,24 @@ def batched_slam_step(mesh: Mesh, cam: CameraParams, **step_kw):
         }
         return mss2, poses, fleet
 
-    try:
-        from jax import shard_map  # jax >= 0.8
-        kw = {"check_vma": False}
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
-        kw = {"check_rep": False}
-
     sharded = shard_map(
         _step,
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis)),
         out_specs=(P(axis), P(axis), P()),
-        **kw,
+        check_vma=False,
     )
     return jax.jit(sharded)
 
 
 def sharded_offline_pipeline(mesh: Mesh, cam: CameraParams, opts,
                              refine_iterations: int = 1, **kw):
-    """Batched offline mapping over a device mesh (BASELINE config 5 at
-    v5e-slice scale): the lane axis of the batched offline pipeline
+    """Batched offline mapping over a device mesh (BASELINE config 5 on
+    several chips): the lane axis of the batched offline pipeline
     (tracking/offline_pipeline.py) shards over the mesh's "seq" axis, each
-    device runs its local lanes (vmapped pre/post, per-lane refine — the
-    same composition the single-chip batched mode uses), and fleet totals
-    ride one psum over ICI. Lanes are fully independent, so
+    device runs its local lanes (the same folded composition the
+    single-chip batched mode uses), and fleet totals ride one psum.
+    Lanes are fully independent, so
     sharded results match the unsharded vmap to float-reassociation
     tolerance (pinned by
     tests/test_multichip.py::test_sharded_offline_equals_unsharded).
@@ -154,18 +148,11 @@ def sharded_offline_pipeline(mesh: Mesh, cam: CameraParams, opts,
         }
         return ms, out, fleet
 
-    try:
-        from jax import shard_map  # jax >= 0.8
-        smkw = {"check_vma": False}
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
-        smkw = {"check_rep": False}
-
     sharded = shard_map(
         local, mesh=mesh,
         in_specs=(P(axis), P(axis)),
         out_specs=(P(axis), P(axis), P()),
-        **smkw,
+        check_vma=False,
     )
     return jax.jit(sharded)
 

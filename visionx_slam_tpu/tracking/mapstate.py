@@ -1,5 +1,5 @@
-"""Immutable fixed-capacity map state: the TPU replacement for the
-reference's mutex-guarded object graph.
+"""Immutable fixed-capacity map state: the device-side replacement for
+the reference's mutex-guarded object graph.
 
 The reference stores the map as ``std::map<id, Frame::Ptr>`` +
 ``unordered_map<id, Landmark::Ptr>`` guarded by mutexes, with per-feature
@@ -19,13 +19,14 @@ identity, no dynamic allocation:
   maps and Feature flags. Sentinels: FREE (-1) = no landmark,
   OUTLIER (-2) = reference's ``is_outlier`` feature flag.
 - per-landmark observation COUNTS (Landmark::ObservationCount,
-  landmark.h:44) are maintained INCREMENTALLY in ``lm_obs``: TPU scatters
-  serialize per update, so recomputing the counts as a 64k-element
-  histogram cost more than an entire tracked frame; counts only change at
-  landmark creation / landmark removal / keyframe removal, all of which
-  are cheap to account for at the point of mutation.
+  landmark.h:44) are maintained INCREMENTALLY in ``lm_obs``: on the earlier
+  accelerator, where this was designed, scatters serialized per update and
+  recomputing the counts as a 64k-element histogram cost more than an entire
+  tracked frame (not yet measured on the H100); counts only change at landmark
+  creation / landmark removal / keyframe removal, all of which are cheap to
+  account for at the point of mutation.
 
-TPU scatter-avoidance: allocation is CONTIGUOUS (slots issue sequentially
+Scatter avoidance: allocation is CONTIGUOUS (slots issue sequentially
 from ``next_lm``), so new-landmark writes are a sort + one
 ``dynamic_update_slice`` instead of a scatter. The landmark tables carry
 ``n_features`` physical padding rows past the logical capacity so the
@@ -57,15 +58,17 @@ class MapState(NamedTuple):
     kf_q: jnp.ndarray        # [K,4] T_cw rotation (wxyz)
     kf_t: jnp.ndarray        # [K,3] T_cw translation
     kf_id: jnp.ndarray       # [K] int32 frame id, -1 = empty slot
-    kf_px: jnp.ndarray       # [K,2,N] feature pixels (coordinate-major: a
-                             # trailing dim of 2 pads to 128 lanes -> 64x memory)
+    kf_px: jnp.ndarray       # [K,2,N] feature pixels (coordinate-major,
+                             # as lm_pos)
     kf_desc: jnp.ndarray     # [K,N,32] uint8 descriptors
     kf_fvalid: jnp.ndarray   # [K,N] feature validity
     kf_feat_lm: jnp.ndarray  # [K,N] int32 landmark slot / FREE / OUTLIER
     kf_depth: jnp.ndarray    # [K,N] depth (m) sampled at the feature, 0 = none
     # --- landmark table [Lp = L + N padding, ...] ---
-    lm_pos: jnp.ndarray      # [3,Lp] (coordinate-major: a [Lp,3] layout pads
-                             # the trailing dim to 128 on TPU -> 43x memory)
+    lm_pos: jnp.ndarray      # [3,Lp] (coordinate-major: chosen for the
+                             # earlier accelerator, whose tiling padded a
+                             # small trailing dim; not yet measured on the
+                             # H100)
     lm_alive: jnp.ndarray    # [Lp] bool
     lm_obs: jnp.ndarray      # [Lp] int32 incremental observation counts
     # --- cursors ---
@@ -154,14 +157,14 @@ def insert_keyframe(
     removes its observations (lm_obs decremented), the moral equivalent of
     RemoveKeyFrame on the oldest. ``fresh_links=True`` (static) asserts
     ``feat_lm`` is all-FREE — the scan's insert always is — and skips the
-    observation-count scatter for the incoming links (a sort + scatter,
-    ~0.5 ms on TPU, that would add nothing).
+    observation-count scatter for the incoming links (a sort + scatter
+    that would add nothing).
     """
     slot = ms.next_kf % ms.kf_capacity
     old_links = ms.kf_feat_lm[slot]
     was_alive = ms.kf_id[slot] >= 0
     # the eviction decrement only matters once the ring has wrapped; the
-    # cond skips its sort+scatter (~0.2 ms) for the first K inserts of a
+    # cond skips its sort+scatter for the first K inserts of a
     # sequence (under vmap it becomes a select — the false branch is the
     # identity, so batched callers lose nothing)
     lm_obs = jax.lax.cond(
@@ -203,14 +206,14 @@ def allocate_landmarks(
     with (1 for depth backprojection, 2 for two-view triangulation).
     Returns (state, slots [N] int32 with FREE where not created/dropped).
 
-    Slots issue contiguously from ``next_lm``, so the writes are a
-    compaction (created rows first, original order — matching the slot
-    order) followed by a dynamic_update_slice into the padded table. This
-    replaces the reference's per-feature ``new Landmark(id++, pw)`` loops
-    (tracking.cpp:640-644, :915-918) without any serializing scatter. The
-    compaction itself is a one-hot MXU matmul, NOT a sort: an [N] argsort
-    costs ~0.2 ms on TPU while the [N,N]x[N,3] contraction is microseconds
-    (this runs on the per-keyframe event path of the online scan).
+    Slots issue contiguously from ``next_lm``, so the writes are a compaction
+    (created rows first, original order — matching the slot order) followed by
+    a dynamic_update_slice into the padded table. This replaces the reference's
+    per-feature ``new Landmark(id++, pw)`` loops (tracking.cpp:640-644,
+    :915-918) without any serializing scatter. The compaction itself is a
+    one-hot matmul, NOT a sort: on the earlier accelerator an [N] argsort cost
+    far more than the [N,N]x[N,3] contraction (chosen there, not yet measured
+    on the H100; this runs on the per-keyframe event path of the online scan).
     """
     N = want.shape[0]
     L = ms.lm_capacity

@@ -4,9 +4,9 @@ The online pipeline (``scan_pipeline.py``) reproduces the reference's
 frame-sequential state machine (core/frontend/tracking.cpp) as a fused
 ``lax.scan`` — correct, but its throughput is capped by the serial chain:
 every frame's extraction waits for the previous frame's BA. This module is
-the TPU-first restructuring for offline/batched mapping (BASELINE configs
+the restructuring for offline/batched mapping (BASELINE configs
 4 and 5): the sequential dependency is broken into embarrassingly parallel
-stages plus one associative prefix composition, so the MXU sees large
+stages plus one associative prefix composition, so the matrix units see large
 batches instead of one frame at a time.
 
 Stages (all inside ONE jit):
@@ -122,7 +122,7 @@ def _chunked_vmap(fn, chunk: int, *args):
     axis to bound peak memory: the matcher materializes an [N,N] distance
     matrix per pair (~4 MB at N=1024), so mapping ALL T-1 pairs at once
     costs O(T) x that in live intermediates — ~1 GB at T=240 and 8x more
-    under a batched-lane vmap. Chunking keeps the MXU batch large enough to
+    under a batched-lane vmap. Chunking keeps the GEMM batch large enough to
     amortize while capping the live set; the tail chunk repeats the last
     element (dropped on return)."""
     M = args[0].shape[0]
@@ -719,20 +719,19 @@ def build_offline_pipeline(
 
     def run_refine(cam: CameraParams, ms: MapState,
                    links: PairLinks) -> MapState:
-        # global_ba, NOT pair_ba, despite pair_ba being 3.7x faster as a
-        # standalone dispatch (0.16 vs 0.57 ms/frame): compiled into the
-        # same XLA program as run_pre (fused or vmapped), pair_ba's CG
-        # link-gathers inherit pathological layouts and each matvec runs
-        # ~7x slower (measured: fused e2e 2.98 vs 2.17 ms/frame; batched
-        # 267 vs 422 aggregate fps; pinning every solver input with
-        # with_layout_constraint does NOT recover it — the layouts are
-        # internal fusion choices, PERF.md round-3 dead ends). pair_ba
-        # still serves the standalone archive GBA dispatch in system.py,
-        # where the measured win holds.
+        # global_ba, NOT pair_ba, though pair_ba was faster as a standalone
+        # dispatch on the earlier accelerator: compiled into the same XLA
+        # program as run_pre (fused or vmapped), pair_ba's CG link-gathers
+        # inherited pathological layouts on the earlier accelerator and lost
+        # end to end (pinning every solver input with with_layout_constraint
+        # did NOT recover it). pair_ba serves the standalone archive GBA
+        # dispatch in system.py. Both routings were chosen on the earlier
+        # accelerator and are not yet measured on the H100 (PERF.md open
+        # questions).
         #
-        # Folded multi-lane mode: ONE merged solve over the lane-merged
-        # map, gauge-grouped per lane block — global_ba's per-group CG
-        # scalars make it exactly B independent solves (pinned by
+        # Folded multi-lane mode: ONE merged solve over the lane-merged map,
+        # gauge-grouped per lane block — global_ba's per-group CG scalars make
+        # it exactly B independent solves (pinned by
         # tests/test_offline_pipeline.py::test_refine_merged_matches_per_lane).
         gg = (None if B_lanes == 1 else
               jnp.repeat(jnp.arange(B_lanes, dtype=jnp.int32), K))
@@ -1500,7 +1499,7 @@ def _close_loops(ms: MapState, cam: CameraParams, opts: TrackingOptions,
     Mechanics, all fixed-shape:
       1. place recognition: per-keyframe bag-of-bits descriptor (mean ORB
          bit rate over valid features, centered), cosine similarity on the
-         MXU; candidates = pairs >= ``min_gap_frames`` apart (time-ordered:
+         GEMM; candidates = pairs >= ``min_gap_frames`` apart (time-ordered:
          train strictly later).
       2. per-query best train + greedy top-``n_pairs`` with slot
          uniqueness (a tiny K-step scan) — no keyframe serves twice, so

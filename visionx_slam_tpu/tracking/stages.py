@@ -240,11 +240,12 @@ def triangulate_pair(
     # dedupe the train side within the batch: the reference's sequential
     # has_landmark check (tracking.cpp:876-879) lets only the FIRST match
     # touching a train feature create a landmark; a batched `free` computed
-    # from the pre-update table would let every query matching the same
-    # train row allocate, and the losers (one real link but obs_init=2)
-    # could never be reaped by compaction. Keep the best-(distance, query
-    # row) per train feature via masked [N,N] segment-mins — an argsort of
-    # [N] costs ~0.2 ms on TPU, the dense mins are microseconds.
+    # from the pre-update table would let every query matching the same train
+    # row allocate, and the losers (one real link but obs_init=2) could never
+    # be reaped by compaction. Keep the best-(distance, query row) per train
+    # feature via masked [N,N] segment-mins (chosen on the earlier accelerator,
+    # where an [N] argsort cost far more than the dense mins; not yet measured
+    # on the H100).
     N = ms.n_features
     eq = (res.idx[:, None] == jnp.arange(N, dtype=res.idx.dtype)[None, :])
     eq_w = eq & want[:, None]                         # [Nq, Nm]
@@ -299,7 +300,9 @@ def cull_landmarks(
     err = jnp.linalg.norm(uv - jnp.swapaxes(ms.kf_px, 1, 2), axis=-1)
     measurable = has & ok                                 # ProjectToPixel fail -> skip
 
-    # sorted packed segment reduction (unsorted TPU scatters serialize)
+    # sorted packed segment reduction (unsorted scatters serialized on the
+    # earlier accelerator, where this was designed; not yet measured on the
+    # H100)
     flat = jnp.where(measurable, lm, L).reshape(-1)
     order = jnp.argsort(flat)
     sidx = flat[order]

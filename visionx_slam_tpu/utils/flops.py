@@ -1,12 +1,7 @@
-"""FLOP / byte accounting and MFU for the SLAM pipelines.
-
-VERDICT r4 #2: the bench reported fps only — nothing said whether the
-online scan's 2.75 ms/frame was near the chip's roofline or 3x off it.
-This module owns that accounting.
+"""FLOP / byte accounting and roofline shares for the SLAM pipelines.
 
 Method: XLA's own cost analysis (``jit(f).lower(args).compile()
-.cost_analysis()``) per STAGE function. Two XLA caveats shape the design
-(verified empirically on this jax build):
+.cost_analysis()``) per STAGE function. Two XLA caveats shape the design:
 
 - loop bodies (``lax.scan`` / ``lax.map`` / ``while``) are counted ONCE,
   not per trip — so whole-pipeline lowering undercounts by the trip
@@ -16,42 +11,39 @@ Method: XLA's own cost analysis (``jit(f).lower(args).compile()
   functions individually instead of the scan step (whose event branch
   would be attributed to every frame).
 
-The per-stage counts feed (a) ``detail.mfu`` in bench.py's JSON and
-(b) the roofline table in PERF.md (``tools/roofline.py``).
+The per-stage counts feed ``detail.mfu`` / ``detail.roofline`` in
+bench.py's JSON. XLA's "flops" metric is dtype-agnostic (2 x MACs for a
+matmul regardless of precision), so utilization is reported against the
+bf16 dense peak.
 
-Peak numbers: the bench chip reports device_kind "TPU v5 lite" (v5e
-class). Public v5e specs: 197 TFLOP/s bf16 / 394 TOPS int8 per chip,
-819 GB/s HBM bandwidth. XLA's "flops" metric is dtype-agnostic (2 x MACs
-for a matmul regardless of precision), so MFU here is reported against
-the bf16 peak — conservative for the int8 Hamming GEMMs (which could
-run 2x faster still) and optimistic for f32 VPU math; the per-stage
-table in PERF.md breaks that mix down.
+Peaks: one row per ``device_kind``, from NVIDIA's H100 data sheet (SXM
+part, dense rates without sparsity, at the full 700 W power limit). A
+device that is not in the table is an error, not a default.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-# public per-chip peaks by device_kind prefix (first match wins)
+# published peaks by exact jax ``device_kind``
 DEVICE_PEAKS = {
-    "TPU v5 lite": dict(flops_bf16=197e12, flops_int8=394e12, hbm_Bps=819e9),
-    "TPU v5e": dict(flops_bf16=197e12, flops_int8=394e12, hbm_Bps=819e9),
-    "TPU v4": dict(flops_bf16=275e12, flops_int8=275e12, hbm_Bps=1228e9),
-    "TPU v6": dict(flops_bf16=918e12, flops_int8=1836e12, hbm_Bps=1640e9),
-    "cpu": dict(flops_bf16=1e11, flops_int8=1e11, hbm_Bps=1e10),
+    # NVIDIA H100 Tensor Core GPU data sheet, H100 SXM column
+    "NVIDIA H100 80GB HBM3": dict(
+        flops_bf16=989e12, flops_int8=1979e12, hbm_Bps=3.35e12),
 }
 
 
 def device_peaks(device=None) -> dict:
+    """Peaks of ``device`` (default: the first JAX device); raises
+    ``KeyError`` for a device kind the table does not list."""
     import jax
 
     kind = (device or jax.devices()[0]).device_kind
-    for prefix, peaks in DEVICE_PEAKS.items():
-        if kind.lower().startswith(prefix.lower()):
-            return dict(peaks, device_kind=kind)
-    # unknown chip: report absolute FLOP/s only (mfu = None upstream)
-    return dict(flops_bf16=None, flops_int8=None, hbm_Bps=None,
-                device_kind=kind)
+    if kind not in DEVICE_PEAKS:
+        raise KeyError(
+            f"no published peaks for device_kind {kind!r} "
+            f"(known: {sorted(DEVICE_PEAKS)})")
+    return dict(DEVICE_PEAKS[kind], device_kind=kind)
 
 
 def xla_cost(fn, *args, **kwargs) -> dict:
@@ -214,8 +206,8 @@ def offline_stage_costs(
 
     LOWER BOUND: the global-BA solver's GN/CG loops are XLA while-loops
     (counted once — see module docstring) and the map-build scatter work
-    is omitted; the listed stages carry the overwhelming share of the
-    pipeline's FLOPs (extraction alone is ~95%)."""
+    is omitted; the listed stages carry most of the pipeline's FLOPs
+    (extraction's BRIEF GEMM dominates)."""
     import jax
     import jax.numpy as jnp
 
@@ -267,7 +259,8 @@ def offline_stage_costs(
 
 def summarize(costs: list[StageCost], t_per_frame_s: float,
               peaks: dict | None = None) -> dict:
-    """Aggregate a stage inventory against a measured per-frame time."""
+    """Aggregate a stage inventory against a measured per-frame time
+    (``peaks`` default: ``device_peaks()``, which raises off the table)."""
     peaks = peaks or device_peaks()
     flops = sum(c.flops_per_frame for c in costs)
     byts = sum(c.bytes_per_frame for c in costs)
@@ -279,12 +272,11 @@ def summarize(costs: list[StageCost], t_per_frame_s: float,
         "arithmetic_intensity": flops / max(byts, 1.0),
         "device_kind": peaks.get("device_kind"),
     }
-    if peaks.get("flops_bf16"):
-        out["mfu_vs_bf16_peak"] = flops / t_per_frame_s / peaks["flops_bf16"]
-        out["bw_util_vs_hbm_peak"] = byts / t_per_frame_s / peaks["hbm_Bps"]
-        # roofline: time lower bounds from compute and bandwidth
-        t_compute = flops / peaks["flops_bf16"]
-        t_bw = byts / peaks["hbm_Bps"]
-        out["roofline_bound"] = "compute" if t_compute > t_bw else "bandwidth"
-        out["roofline_floor_us_per_frame"] = max(t_compute, t_bw) * 1e6
+    out["mfu_vs_bf16_peak"] = flops / t_per_frame_s / peaks["flops_bf16"]
+    out["bw_util_vs_hbm_peak"] = byts / t_per_frame_s / peaks["hbm_Bps"]
+    # roofline: time lower bounds from compute and bandwidth
+    t_compute = flops / peaks["flops_bf16"]
+    t_bw = byts / peaks["hbm_Bps"]
+    out["roofline_bound"] = "compute" if t_compute > t_bw else "bandwidth"
+    out["roofline_floor_us_per_frame"] = max(t_compute, t_bw) * 1e6
     return out
